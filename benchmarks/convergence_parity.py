@@ -16,9 +16,9 @@ mathematically identical implementations with different reduction orders
 separate exponentially); the golden configs below are chosen so histories
 track to <=1e-4 relative through convergence.
 
-Larger-scale convergence (N=250k..10M) is exercised by
-benchmarks/baseline_configs.py rows 2-5 without a reference comparison (the
-reference cannot run them: its dense-operand path is O(N^2) memory).
+Larger-scale convergence (N=250k..10M) is exercised by ``chip_smoke.py``
+against plain SciPy/NumPy float64 checks instead (the reference cannot run
+those sizes: its dense-operand path is O(N^2) memory).
 
 Usage:  JAX_PLATFORMS=cpu python benchmarks/convergence_parity.py
 """

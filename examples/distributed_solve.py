@@ -1,6 +1,6 @@
 """Row-partitioned distributed solve over a device mesh.
 
-On a multi-chip TPU slice this uses all chips; on a dev box run with
+On a multi-GPU host this uses all GPUs; on a dev box run with
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/distributed_solve.py

@@ -1,14 +1,12 @@
 """Production pattern: amortized multi-RHS solves on general sparse.
 
-On TPU the cost of an irregular SpMV is dominated by the gather's
+The cost of an irregular SpMV is dominated by the gather's
 per-index addressing, and that index stream is IDENTICAL for every
 right-hand side.  ``solve_batched`` runs a whole batch of systems as one
 vmapped dispatch whose gathers/scatters lay the batch out as the
 trailing axis (custom batching rules in ``sparse/formats.py``), paying
-the addressing once per index for the whole batch — measured on the
-1M-row power-law capture: 0.378 s per system for an 8-RHS block vs
-1.247 s solo (and 5.9x faster than an equally-blocked host CG;
-RESULTS.md row 4).
+the addressing once per index for the whole batch: the shared index
+stream is read once per batch, not once per system.
 
 Typical uses: multiple load cases of one structure, multiple sources in
 one field problem, block-Krylov outer methods.  Each lane keeps its OWN

@@ -1,4 +1,4 @@
-"""Preconditioned + pipelined CG family with TPU-native preconditioners.
+"""Preconditioned + pipelined CG family with matvec-only preconditioners.
 
     python examples/preconditioned.py
 """

@@ -1,6 +1,6 @@
-"""tpu-krylov: a TPU-native Krylov subspace solver library.
+"""tpu-krylov: a JAX library of Krylov subspace solvers.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability set of
+A from-scratch JAX/XLA re-design of the capability set of
 5enxia/parallel-krylov (CG, MrR, k-skip CG, k-skip MrR, adaptive k-skip MrR,
 plus the preconditioned/pipelined CG family), replacing the reference's
 cpu/gpu/mpi dispatch tree (reference: v1/ v2/ v3/ trees) with a single
@@ -11,7 +11,6 @@ mesh-parameterized code path:
   ``lax.fori_loop`` (``krylov_tpu.solvers``)
 - distribution via ``jax.sharding.Mesh`` + ``shard_map`` with psum/all_gather/
   ppermute collectives (``krylov_tpu.dist``)
-- Pallas TPU kernels for the hot ops (``krylov_tpu.kernels``)
 - a SciPy-compatible front door (``krylov_tpu.api``), modeled on the
   reference's v3 API (reference: v3/cpu/cg.py:7).
 """

@@ -239,7 +239,7 @@ def _add_matrix_args(p):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m krylov_tpu",
-        description="TPU-native parallel Krylov solver driver",
+        description="parallel Krylov solver driver",
     )
     sub = p.add_subparsers(dest="command", required=True)
 
@@ -277,7 +277,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from krylov_tpu.compile_cache import enable_compile_cache
+
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -15,9 +15,9 @@ solver implementation:
   exchange), see :mod:`krylov_tpu.dist`.
 
 Inner products accumulate at ``lax.Precision.HIGHEST`` and can be promoted to
-a wider ``scalar_dtype`` (float32 data + float64 scalar recurrences), which
-is the TPU answer to the reference's all-float64 policy (reference:
-v3/cpu/common.py:23) given that TPU float64 is emulated.
+a wider ``scalar_dtype`` (float32 data + float64 scalar recurrences): the
+reference's all-float64 policy (reference: v3/cpu/common.py:23) where it
+matters, at float32 vector bandwidth.
 """
 
 from __future__ import annotations
@@ -78,11 +78,11 @@ class Context:
         """All pairwise inner products of the rows of B in ONE fused reduction.
 
         ``B`` is a (m, n_local) stack of Krylov basis vectors; the result is
-        the (m, m) Gram matrix psum-reduced across the mesh.  This is the
-        TPU-native replacement for the reference's 6k+O(1) individual dot
-        products per k-skip bundle (reference: v3/cpu/kskipmrr.py:51-59,
-        computed redundantly per rank at v3/cpu/mpi/kskipmrr.py:64-73): a
-        single MXU matmul + a single collective.
+        the (m, m) Gram matrix psum-reduced across the mesh.  This replaces
+        the reference's 6k+O(1) individual dot products per k-skip bundle
+        (reference: v3/cpu/kskipmrr.py:51-59, computed redundantly per rank
+        at v3/cpu/mpi/kskipmrr.py:64-73): a single matmul + a single
+        collective.
         """
         Bw = self._wide(B)
         local = jnp.dot(Bw, Bw.T, precision=lax.Precision.HIGHEST)

@@ -54,9 +54,4 @@ def build_info(result, elapsed_time: float) -> dict:
     if result.true_residual is not None:
         # set by the restarts= device-side defect-correction path
         info["true_residual"] = float(result.true_residual)
-    if result.trace_truncated is not None and bool(result.trace_truncated):
-        # fused path ran past the SMEM trace capacity: the tail of
-        # info["residual"] was overwritten in the last slot (iteration
-        # counts stay exact; only residual RECORDING clamps)
-        info["residual_truncated"] = True
     return info

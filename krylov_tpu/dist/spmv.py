@@ -9,8 +9,8 @@ This replaces the reference's distributed SpMV engines:
   v3/gpu/common.py:112-126, v3/gpu/mpi/common.py:137-165).
 
 The reference always ships the FULL iterate vector to every participant.
-The TPU-native design keeps every vector row-sharded and exchanges only what
-the sparsity structure needs:
+This design keeps every vector row-sharded and exchanges only what the
+sparsity structure needs:
 
 - ``halo`` strategy (banded/DIA operators): each device ``ppermute``s its
   boundary strips of width = matrix bandwidth to its ring neighbors — O(bw)
@@ -120,14 +120,14 @@ def _dia_halo_matvec(data_local, offsets, x_local, axis, n_devices):
     :func:`shard_operator` — note this differs from 2*bandwidth for
     asymmetric bands, e.g. offsets (0, 1, 2) need 2 <= local_n, not 4).
 
-    Structured for TRANSFER/COMPUTE OVERLAP (verified on the scheduled
-    8-chip v5e HLO, benchmarks/overlap_analysis.py): the bulk pass applies
-    the whole band to the local block padded with ZEROS — no data dependence
-    on the ppermutes, so XLA's latency-hiding scheduler hoists it between
+    Structured for TRANSFER/COMPUTE OVERLAP: the bulk pass applies the
+    whole band to the local block padded with ZEROS — no data dependence on
+    the ppermutes, so XLA's latency-hiding scheduler may place it between
     ``collective-permute-start`` and ``-done`` — and only the ``left``/
     ``right`` boundary entries are then recomputed from the received halos.
-    (A previous version concatenated halos before a single full-band pass;
-    the scheduler fused everything after the -done and nothing overlapped.)
+    (Concatenating the halos before a single full-band pass makes every
+    output depend on the transfer, so nothing can overlap it.)  Whether the
+    GPU schedule overlaps them is not measured yet.
     """
     local_n = x_local.shape[0]
     left = max(0, -min(offsets))
@@ -237,11 +237,8 @@ def _stencil_halo_matvec(op: ShardedOperator, x_local, ctx):
 
     # ... the halo-independent bulk next: the whole stencil on the local
     # slab padded with ZERO planes.  No data dependence on the ppermutes, so
-    # XLA's latency-hiding scheduler hoists this (99.9% of the FLOPs)
-    # between collective-permute-start and -done — verified on the scheduled
-    # 8-chip v5e HLO (benchmarks/overlap_analysis.py; a previous version
-    # concatenated the halos before one full-stencil pass, and the scheduler
-    # fused everything after the -done: nothing overlapped).
+    # XLA's latency-hiding scheduler may place this (nearly all the FLOPs)
+    # between collective-permute-start and -done (see _dia_halo_matvec).
     x_pad = jnp.pad(xg, [(lo0, hi0)] + [(0, 0)] * len(rest))
     y_bulk = stencil(x_pad, local_g0, 0)
     if lo0 == 0 and hi0 == 0:

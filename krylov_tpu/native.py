@@ -3,12 +3,12 @@
 Loads ``libkrylov_native.so`` (built with ``make -C native``) and exposes the
 host-side hot paths — Matrix Market parsing, COO→CSR, CSR→ELL/DIA packing —
 with transparent numpy fallbacks when the library is absent.  This is the
-TPU-framework counterpart of the reference's missing Cython/native layer
+counterpart of the reference's missing Cython/native layer
 (reference: v1/processes/adaptivekskipmrr.py:5 imports an absent compiled
 module; external BLAS/cuSPARSE do the rest — SURVEY §2.4).
 
-Everything here is host preprocessing; the device compute path is
-JAX/XLA/Pallas.
+Everything here is host preprocessing; the device compute path is JAX/XLA.
+The library is not shipped prebuilt: build it on the host that runs it.
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
-"""TPU-native preconditioners.
+"""Matvec-only preconditioners.
 
 The reference's only preconditioner is a duck-typed ILU operand
 (``ilu.solve(r)``, reference: v1/threads/pipeline/pcg.py:4,29) — sparse
-triangular solves, which serialize row-by-row and map terribly onto the
-TPU's 8x128 vector lanes.  The idiomatic TPU replacements provided here are
-matvec-only and fully jittable:
+triangular solves, which serialize row-by-row and leave a wide vector
+machine idle.  The replacements provided here are matvec-only and fully
+jittable:
 
 - :func:`jacobi` — inverse-diagonal scaling (a DiaMatrix with offset 0);
 - :class:`ChebyshevPreconditioner` — degree-d Chebyshev polynomial

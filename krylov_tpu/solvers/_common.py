@@ -3,9 +3,9 @@
 Design notes (vs. the reference's host-side loops):
 
 The reference iterates in Python, checking ``residual[i] < tol`` on the host
-each iteration and ``break``-ing out (reference: v3/cpu/cg.py:19-24).  On TPU
-that would force a device→host sync per iteration, so every solver here is a
-single ``lax.while_loop`` whose predicate lives on device:
+each iteration and ``break``-ing out (reference: v3/cpu/cg.py:19-24).  On an
+accelerator that would force a device→host sync per iteration, so every
+solver here is a single ``lax.while_loop`` whose predicate lives on device:
 
 - the carry holds the iterate state plus ``(i, index, converged)`` and
   fixed-size residual / solution-update traces (``maxiter`` is static);
@@ -51,11 +51,10 @@ def pow2_scale(s):
     e = jnp.round(jnp.log2(jnp.where(ok, s, 1.0))).astype(jnp.int32)
     # Construct 2**e exactly from the float32 bit pattern (e+127)<<23.
     # exp2 lowers to exp(e*ln2) on XLA and is off by an ulp for large |e|
-    # (breaking the exact-scaling guarantee); ldexp on float64 lowers to
-    # s64 bitcast-converts that the TPU X64-rewriting pass rejects.  All
-    # per-step norms fit the float32 exponent range (the basis vectors are
-    # working-precision); the clip makes out-of-range float64 norms scale
-    # partially (still an exact power of two) rather than overflow.
+    # (breaking the exact-scaling guarantee).  All per-step norms fit the
+    # float32 exponent range (the basis vectors are working-precision); the
+    # clip makes out-of-range float64 norms scale partially (still an exact
+    # power of two) rather than overflow.
     e = jnp.clip(e, -126, 127)
     val32 = jax.lax.bitcast_convert_type(
         ((e + 127) << 23).astype(jnp.int32), jnp.float32
@@ -102,10 +101,6 @@ class SolveResult:
     # Device-computed ||b - A x|| / ||b|| (set by the ``restarts=`` defect-
     # correction path in :mod:`krylov_tpu.api`; None otherwise).
     true_residual: Optional[jax.Array] = None
-    # True when the residual trace ran past its recording capacity and the
-    # tail was overwritten in the last slot (fused path with
-    # iterations > kernels.fused.TRACE_CAP; None where not applicable).
-    trace_truncated: Optional[jax.Array] = None
     # Opaque solver-state tuple for EXACT chunked continuation (cg/mrr with
     # ``emit_carry=True``): feed back via ``carry_in=(carry, valid)`` and the
     # next chunk resumes the recurrence bit-for-bit — no Krylov restart.
@@ -124,7 +119,6 @@ jax.tree_util.register_dataclass(
         "k_trace",
         "final_k",
         "true_residual",
-        "trace_truncated",
         "carry",
     ],
     meta_fields=[],

@@ -10,7 +10,7 @@ v3/cpu/adaptivekskipmrr.py:63-65); otherwise it accepts the state
 v3/cpu/adaptivekskipmrr.py:68-70).  Either way it then proceeds with a
 k-skip outer step at the current k.  ``khistory`` records k per outer index.
 
-TPU-native design — this is the piece the reference needed a (missing)
+Fully traced design — this is the piece the reference needed a (missing)
 Cython kernel for (reference: v1/processes/adaptivekskipmrr.py:5) and the
 BASELINE north star requires traced-and-jitted:
 

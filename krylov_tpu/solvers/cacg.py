@@ -4,7 +4,7 @@ Beyond-reference capability.  The reference's k-skip family advances its
 inner products through scalar recurrences derived for the MONOMIAL basis
 ``A^j r`` (reference: v3/cpu/kskipcg.py:59-64), whose conditioning grows
 like ``kappa^k`` — in float32 it collapses around k≈4 on stiff operators
-and even float64 gives out near k≈8-10 (measured, RESULTS.md row 4).  The
+and even float64 gives out near k≈8-10 (tests/test_cacg.py).  The
 principled fix from the CA-Krylov literature (Hoemmen 2010 "Communication-
 avoiding Krylov subspace methods"; Carson 2015 thesis) is to span the same
 Krylov space with a better-conditioned polynomial basis and carry the CG
@@ -19,14 +19,14 @@ scalars through the basis Gram matrix instead of bespoke recurrences:
   for every basis column the inner loop touches, straight from the 3-term
   recurrence.  Applying A to any iterate becomes a tiny matrix-vector
   product in coefficient space.
-- **One Gram** ``G = V V^T`` per outer iteration — a single MXU matmul
+- **One Gram** ``G = V V^T`` per outer iteration — a single matmul
   and, distributed, ONE psum per s CG steps (the same communication
   schedule as the k-skip family, reference analog:
   v3/cpu/mpi/kskipcg.py bundles).
 - **Inner s steps** run entirely on (2s+1)-long coefficient vectors:
   ``alpha = <r,r>_G / <p, T p>_G``, updates on x̂/r̂/p̂ — scalar-dtype
   dataflow, no vector work at all.
-- **Recovery**: ``x += x̂ V``, ``p = p̂ V`` — two tall-skinny MXU matmuls;
+- **Recovery**: ``x += x̂ V``, ``p = p̂ V`` — two tall-skinny matmuls;
   the residual is recomputed as ``b - A x`` each outer iteration
   (residual replacement, Carson §5: keeps the true and recurred residuals
   coupled in working precision at a cost of 1/(2s-1) extra SpMVs).
@@ -49,6 +49,8 @@ and in float64 it tracks plain CG's iteration count.
 
 from __future__ import annotations
 
+from functools import partial
+
 import jax.numpy as jnp
 import numpy as np
 from jax import lax
@@ -68,6 +70,13 @@ from krylov_tpu.solvers._common import (
 # histories oscillate well under 10x; the post-floor instability grows by
 # orders of magnitude per outer (measured: 1.6e-7 -> 1.1e-5 -> 4.9e-3).
 _GUARD_GROWTH = 10.0
+
+# Every product in coefficient space and every recovery combination runs at
+# full working precision.  At the default precision a float32 matmul may run
+# in TF32 on a GPU (10 mantissa bits, ~1e-3 relative error), which breaks
+# the Gram-weighted inner products the s inner steps are built on and the
+# cross-outer conjugacy of the carried search direction.
+_mm = partial(jnp.matmul, precision=lax.Precision.HIGHEST)
 
 
 def _chebyshev_T(m: int, blocks, lmin: float, lmax: float) -> np.ndarray:
@@ -135,13 +144,12 @@ def cacg_kernel(
     public API fills them with Lanczos estimates); ``basis="monomial"``
     ignores them.
 
-    **Divergence guard** (round 5): s-step CG is unstable once the
-    residual reaches the working-precision floor — measured on BOTH
-    backends: a forced continuation past convergence blows up within two
-    outer iterations (CPU: 1.6e-7 -> 1.1e-5 -> 4.9e-3 at n=16k, s=8), and
-    on the TPU backend the attainable floor sits just above a tol the CPU
-    run clears, so the un-guarded kernel sailed past its best iterate into
-    that instability (captured round 4: residual 41.3 on row 4).  The body
+    **Divergence guard**: s-step CG is unstable once the residual reaches
+    the working-precision floor — a forced continuation past convergence
+    blows up within two outer iterations (CPU: 1.6e-7 -> 1.1e-5 -> 4.9e-3
+    at n=16k, s=8), and where the attainable floor sits just above ``tol``
+    an un-guarded kernel sails past its best iterate into that
+    instability.  The body
     therefore tracks the best iterate seen and, when an outer iteration
     regresses by more than ``_GUARD_GROWTH``x (or goes non-finite), rolls
     back to ``x_best`` and restarts the direction chain from the true
@@ -256,27 +264,19 @@ def cacg_kernel(
             x_hat = jnp.zeros(m, sdt)
             rGr = G[o, o]
             for _ in range(s):
-                w = T @ p_hat
-                alpha = safe_div(rGr, p_hat @ (G @ w))
+                w = _mm(T, p_hat)
+                alpha = safe_div(rGr, _mm(p_hat, _mm(G, w)))
                 x_hat_n = x_hat + alpha * p_hat
                 r_hat_n = r_hat - alpha * w
-                rGr_new = r_hat_n @ (G @ r_hat_n)
+                rGr_new = _mm(r_hat_n, _mm(G, r_hat_n))
                 beta = safe_div(rGr_new, rGr)
                 p_hat = r_hat_n + beta * p_hat
                 x_hat, r_hat, rGr = x_hat_n, r_hat_n, rGr_new
 
             # Recovery: two tall-skinny combinations + residual
-            # replacement.  precision=HIGHEST: the default f32 matmul
-            # precision on TPU runs the MXU in bfloat16 passes (~1e-3
-            # relative error), and the carried search direction p must
-            # preserve CG's cross-outer conjugacy in full working
-            # precision.
-            x_n = x + jnp.matmul(
-                x_hat.astype(vdt), V, precision=lax.Precision.HIGHEST
-            )
-            p_n = jnp.matmul(
-                p_hat.astype(vdt), V, precision=lax.Precision.HIGHEST
-            )
+            # replacement, at full precision (see _mm).
+            x_n = x + _mm(x_hat.astype(vdt), V)
+            p_n = _mm(p_hat.astype(vdt), V)
             r_n = b - ctx.matvec(A, x_n)
             return x_n, r_n, p_n
 
@@ -359,9 +359,9 @@ def camrr_kernel(
     Carries the same outer-level divergence guard as :func:`cacg_kernel`
     (best-iterate tracking; rollback on non-finite or >10x-regressed
     residual, restarting y/z via the MrR init half-step — the reference's
-    adaptive rollback shape, v3/cpu/adaptivekskipmrr.py:44-66).  camrr is
-    measured-robust on the TPU backend; the guard is insurance that a
-    stagnated run returns its best iterate instead of a diverged one.
+    adaptive rollback shape, v3/cpu/adaptivekskipmrr.py:44-66).  The guard
+    is insurance that a stagnated run returns its best iterate instead of a
+    diverged one.
     """
     if s < 1:
         raise ValueError(f"s must be >= 1, got {s}")
@@ -486,29 +486,21 @@ def camrr_kernel(
             z_hat = jnp.zeros(m, sdt).at[oz].set(1.0)
             x_hat = jnp.zeros(m, sdt)
             for _ in range(s):
-                Ar_hat = T @ r_hat
-                Gy = G @ y_hat
-                gamma = safe_div(Ar_hat @ Gy, y_hat @ Gy)
+                Ar_hat = _mm(T, r_hat)
+                Gy = _mm(G, y_hat)
+                gamma = safe_div(_mm(Ar_hat, Gy), _mm(y_hat, Gy))
                 s_hat = Ar_hat - gamma * y_hat
-                Gs = G @ s_hat
-                zeta = safe_div(r_hat @ Gs, s_hat @ Gs)
+                Gs = _mm(G, s_hat)
+                zeta = safe_div(_mm(r_hat, Gs), _mm(s_hat, Gs))
                 eta = -zeta * gamma
                 y_hat = eta * y_hat + zeta * Ar_hat
                 z_hat = eta * z_hat - zeta * r_hat
                 r_hat = r_hat - y_hat
                 x_hat = x_hat - z_hat
 
-            # precision=HIGHEST as in cacg_kernel (TPU default = bf16 MXU
-            # passes).
-            x_n = x + jnp.matmul(
-                x_hat.astype(vdt), V, precision=lax.Precision.HIGHEST
-            )
-            y_n = jnp.matmul(
-                y_hat.astype(vdt), V, precision=lax.Precision.HIGHEST
-            )
-            z_n = jnp.matmul(
-                z_hat.astype(vdt), V, precision=lax.Precision.HIGHEST
-            )
+            x_n = x + _mm(x_hat.astype(vdt), V)
+            y_n = _mm(y_hat.astype(vdt), V)
+            z_n = _mm(z_hat.astype(vdt), V)
             r_n = b - ctx.matvec(A, x_n)  # residual replacement
             return x_n, r_n, y_n, z_n
 

@@ -11,9 +11,9 @@ evaluates the coefficient bundles
 and then performs k+1 CG steps where the inner products are advanced by
 scalar recurrences only (reference: v3/cpu/kskipcg.py:59-64).
 
-TPU-native redesign of the bundle: all of a/f/c are entries of the Gram
+Redesign of the bundle: all of a/f/c are entries of the Gram
 matrix of the stacked basis ``B = [Ar[0..k]; Ap[0..k+1]]`` — one
-(2k+3) x (2k+3) Gram computed as a single MXU matmul ``B @ B.T`` and, when
+(2k+3) x (2k+3) Gram computed as a single matmul ``B @ B.T`` and, when
 distributed, reduced with ONE ``psum`` (the reference instead computes the
 6k+8 dot products one by one, redundantly on every rank after allgathering
 the bases — reference: v3/cpu/mpi/kskipcg.py analog of

@@ -11,9 +11,9 @@ an MrR init half-iteration, then outer iterations that build bases
 and perform k+1 MrR steps via scalar recurrences (reference:
 v3/cpu/kskipmrr.py:72-93), each with one SpMV ``Ar[1] = A @ Ar[0]``.
 
-TPU-native redesign (same as :mod:`krylov_tpu.solvers.kskip_cg`): the 6k+6
+Redesign (same as :mod:`krylov_tpu.solvers.kskip_cg`): the 6k+6
 bundle entries are read out of ONE Gram matrix of the stacked basis
-``B = [Ar[0..k+1]; Ay[0..k]]`` — a single MXU matmul + a single ``psum``.
+``B = [Ar[0..k+1]; Ay[0..k]]`` — a single matmul + a single ``psum``.
 
 One reference inefficiency is intentionally NOT replicated: the reference
 recomputes ``Ar[1] = A @ Ar[0]`` at the top of every outer basis loop
@@ -26,20 +26,18 @@ iteration with bit-identical numerics.
 Basis stabilization (``basis_norm=True``): the raw monomial basis
 ``A^j r`` degenerates in working precision — ``||A^j r||`` grows like
 ``lambda_max^j`` and in float32 the Gram entries overflow outright at
-k=8 on stiff operators (recorded NaN on the round-3 captures), while the
-recurrences lose everything to cancellation well before that.  With
+k=8 on stiff operators (NaN), while the recurrences lose everything to
+cancellation well before that.  With
 ``basis_norm`` each new basis vector is scaled to unit norm as it is
 built and the cumulative scale factors are carried in the SCALAR dtype;
 the Gram of the normalized basis (all entries O(1)) is then rescaled by
 ``outer(c, c)`` so alpha/beta/delta take exactly their mathematical
 values — exact algebra, no approximation, and the recurrences are
-untouched.  Scope of the fix (measured, round-4 captures): normalization
-prevents the GRAM OVERFLOW failure mode — with ``scalar_dtype=float64``
-it rescued the adaptive solver on the 1M-row general-sparse capture
-(NaN -> converged, true residual 9.2e-7) — but it does NOT repair the
-recurrences' kappa^k cancellation: plain monomial k-skip MrR still
-recorded NaN with basis_norm at k=8 on that system and at k=4 on its
-ill-conditioned companion.  For stiff systems at large skip sizes use
+untouched.  Scope of the fix: normalization prevents the GRAM OVERFLOW
+failure mode (with ``scalar_dtype=float64`` the adaptive solver converges
+where the raw basis gives NaN) but it does NOT repair the recurrences'
+kappa^k cancellation: plain monomial k-skip MrR can still reach NaN with
+basis_norm at large k on ill-conditioned systems.  For stiff systems at large skip sizes use
 the Chebyshev-basis methods (``cacg``/``camrr``), whose Gram entries
 stay O(||r||^2) by construction; basis_norm + adaptive k is the
 monomial-family fallback.  Costs: one extra norm reduction per basis vector, batched in

@@ -6,7 +6,7 @@ vectors ``y = zeta*Ar``, ``z = -zeta*r``; each subsequent iteration computes
 ``gamma = <y,Ar>/<y,y>``, ``s = Ar - gamma*y``, ``zeta = <r,s>/<s,s>``,
 ``eta = -zeta*gamma`` and updates ``y, z, r, x`` by the 2-term recurrences.
 
-TPU-native deviation: the reference evaluates 5 separate inner products per
+Deviation: the reference evaluates 5 separate inner products per
 iteration (``<y,y>, <y,Ar>, <r,s>, <s,s>`` plus the ``norm(r)`` convergence
 check); here ``<y,y>, <y,Ar>, <r,Ar>, <Ar,Ar>, <r,r>`` are evaluated as ONE
 fused 5-way bundle (single ``psum`` when distributed) and

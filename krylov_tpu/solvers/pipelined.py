@@ -17,17 +17,17 @@ do NOT replicate, implementing the intended textbook algorithms instead
   ``m = M^-1 w``; here ``w`` is used, which is what makes the ``u``/``w``
   recurrences consistent.
 
-On TPU the point of these variants is reduction fusion: each iteration's
+On an accelerator the point of these variants is reduction fusion: each iteration's
 inner products are evaluated as ONE fused bundle (single ``psum`` when
 distributed), and for the pipelined variant the convergence norm rides the
 same bundle, giving one reduction point per iteration.
 
 ``M`` is any library operator (or ``None`` for identity) — see
-:mod:`krylov_tpu.precond` for TPU-native preconditioners (Jacobi,
+:mod:`krylov_tpu.precond` for matvec-only preconditioners (Jacobi,
 Chebyshev/Neumann polynomial).  The reference's ILU operand
 (reference: v1/threads/pipeline/pcg.py:4 ``ilu.solve``) relies on sparse
-triangular solves, which are inherently sequential and hostile to the TPU's
-vector units; polynomial preconditioning is the idiomatic replacement.
+triangular solves, which are inherently sequential and leave wide vector
+units idle; polynomial preconditioning is the idiomatic replacement.
 """
 
 from __future__ import annotations

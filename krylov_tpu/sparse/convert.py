@@ -1,9 +1,9 @@
-"""Conversions from host formats (scipy CSR/COO, dense) into TPU containers.
+"""Conversions from host formats (scipy CSR/COO, dense) into library containers.
 
 The reference delegates format handling to scipy/CuPy CSR (reference:
 v2/gpu/common.py:95-105 uploads ``csr_matrix`` per device); here the
 conversion step is explicit preprocessing: analyze the sparsity pattern once
-on host, emit a static-shape TPU container.  A C++ fast path for very large
+on host, emit a static-shape container.  A C++ fast path for very large
 matrices lives in ``native/`` (used automatically when built); this module is
 the always-available pure-python/numpy path.
 """
@@ -215,7 +215,7 @@ def to_dense(A, dtype=None) -> DenseMatrix:
 def pad_to_multiple(A: Operator, b: np.ndarray, multiple: int) -> Tuple[Operator, np.ndarray, int]:
     """Zero-pad the system so N divides ``multiple``.
 
-    TPU-native version of the reference's padding step that makes N divisible
+    Counterpart of the reference's padding step that makes N divisible
     by the process/GPU count (reference: v2/cpu/mpi/common.py:28-51,
     v2/gpu/common.py:25-60).  Padding rows get a unit diagonal (keeps the
     operator SPD and padded solution entries exactly zero for zero rhs).

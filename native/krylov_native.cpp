@@ -1,6 +1,6 @@
 // Native preprocessing kernels for krylov_tpu.
 //
-// Host-side hot paths that sit in front of the TPU compute path: Matrix
+// Host-side hot paths that sit in front of the device compute path: Matrix
 // Market parsing and CSR format conversion/analysis.  The reference leaned
 // on scipy for these (reference: requirements.txt pins scipy; matrices were
 // loaded from gitignored *.mtx / *.npz files, reference: .gitignore:1-19);

@@ -71,10 +71,9 @@ def test_adaptive_matches_kskipmrr_when_no_rollback():
 
 
 def test_adaptive_rescues_float32():
-    """TPU-relevant: in float32 (the TPU-native dtype) plain k-skip MrR at
-    k=4 diverges on a cond~1e4 Laplacian while the adaptive variant's
-    k-decrement recovers convergence — the practical reason this solver is
-    the flagship for f32 TPU deployments."""
+    """In float32 plain k-skip MrR at k=4 diverges on a cond~1e4 Laplacian
+    while the adaptive variant's k-decrement recovers convergence — the
+    practical reason this solver is the flagship for float32 deployments."""
     import jax.numpy as jnp
 
     A = laplace2d(100, dtype=np.float32)
@@ -110,9 +109,9 @@ def test_adaptive_k1_stays():
 def test_adaptive_rolls_back_from_nonfinite_blowup():
     """A k-skip outer step that blows up to inf/NaN WITHIN the step must
     trigger the rollback, not be silently accepted: the reference's
-    ``residual > pre_residual`` guard is False for NaN, which left the
-    round-3 1M-row capture stuck at NaN for 64 iterations (reference
-    defect class; predicate extended here with an isfinite check).
+    ``residual > pre_residual`` guard is False for NaN, which leaves a solve
+    stuck at NaN until maxiter (reference defect class; predicate extended
+    here with an isfinite check).
 
     An extreme graded diagonal (12 decades) overflows the float32 monomial
     basis at k=8 inside the very first outer step; the fixed rollback

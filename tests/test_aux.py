@@ -42,32 +42,3 @@ def test_phase_times():
     assert t["converged"]
     assert t["solve_s"] <= t["compile_plus_first_solve_s"]
     assert t["iterations"] > 0
-
-
-def test_build_info_trace_truncated_flag():
-    """VERDICT r2 #7: when the fused path clamps residual RECORDING to the
-    SMEM trace cap, info must say so instead of silently returning a history
-    whose tail was overwritten (the full-history contract is reference
-    behavior: v3/cpu/common.py:22-36).  The fused kernels are TPU-only, so
-    the flag plumbing is unit-tested here and the end-to-end fused behavior
-    is exercised on hardware (RESULTS.md)."""
-    import jax.numpy as jnp
-
-    from krylov_tpu.diagnostics import build_info
-    from krylov_tpu.solvers import SolveResult
-
-    def result(truncated):
-        return SolveResult(
-            x=jnp.zeros(4),
-            residual_trace=jnp.zeros(9),
-            nosl_trace=jnp.arange(9),
-            iterations=jnp.int32(20),
-            index=jnp.int32(8),
-            converged=jnp.bool_(True),
-            trace_truncated=truncated,
-        )
-
-    info = build_info(result(jnp.bool_(True)), 0.1)
-    assert info["residual_truncated"] is True
-    assert "residual_truncated" not in build_info(result(jnp.bool_(False)), 0.1)
-    assert "residual_truncated" not in build_info(result(None), 0.1)

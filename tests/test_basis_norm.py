@@ -1,8 +1,8 @@
 """Normalized-basis (``basis_norm=``) stabilization of the k-skip family.
 
-VERDICT r3 item 2: the raw monomial basis ``A^j r`` collapses in float32 on
-stiff operators (overflow + cancellation — recorded NaN on the round-3 TPU
-captures).  ``basis_norm`` scales each basis vector by the nearest POWER OF
+The raw monomial basis ``A^j r`` collapses in float32 on
+stiff operators (overflow + cancellation — NaN in float32 k-skip runs on
+the graded power-law system).  ``basis_norm`` scales each basis vector by the nearest POWER OF
 TWO of its norm (exact in floating point — no added rounding) and carries
 the cumulative scales through the bundle, so alpha/beta/delta take exactly
 their mathematical values.  These tests pin:
@@ -13,8 +13,7 @@ their mathematical values.  These tests pin:
 - float32 + f64 scalars on an ill-conditioned system (the row-4b class,
   kappa ~ 1e5): basis_norm keeps the k-skip family finite and converging
   where the raw basis diverges;
-- the sharded (mesh) path supports basis_norm (the chain norms psum);
-- fused=True conflicts loudly.
+- the sharded (mesh) path supports basis_norm (the chain norms psum).
 """
 
 import jax
@@ -62,9 +61,8 @@ def test_f64_iteration_parity(method, k, rng):
 
 
 def _hard_problem(n=2048, dtype=np.float32, seed=0):
-    """Row-4b class: power-law graph Laplacian with graded diagonal
-    (kappa ~ 1e5) — the system where the raw f32 k-skip basis recorded NaN
-    (benchmarks/captured_rows.jsonl, round 3)."""
+    """Power-law graph Laplacian with graded diagonal (kappa ~ 1e5) — the
+    system where the raw f32 k-skip basis records NaN."""
     A64 = powerlaw_spd(n, shift=1e-3, diag_scale_decades=1.5, seed=seed)
     return A64, as_operator(A64.astype(dtype))
 
@@ -140,12 +138,3 @@ def test_basis_norm_chunked_exact(rng):
         i_full["residual"], i_chunk["residual"][: len(i_full["residual"])],
         rtol=1e-9,
     )
-
-
-def test_basis_norm_rejects_fused():
-    A = laplace2d(16, dtype=np.float64)
-    with pytest.raises(ValueError, match="basis_norm"):
-        krylov_tpu.solve(
-            np.asarray if False else A, np.ones(256), method="kskipmrr",
-            k=2, fused=True, basis_norm=True,
-        )

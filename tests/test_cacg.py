@@ -51,8 +51,8 @@ def test_f64_tracks_plain_cg(s, rng):
 @pytest.mark.parametrize("s", [8, 16])
 def test_f32_converges_at_large_s_where_monomial_dies(s, rng):
     """The headline property: float32 communication-avoiding CG at s=8/16
-    on the row-4b problem class (monomial k-skip records NaN there at k>=4,
-    benchmarks/captured_rows.jsonl)."""
+    on the graded power-law problem class (monomial k-skip records NaN
+    there at k>=4)."""
     A64, Ao = _hard()
     b = rng.standard_normal(A64.shape[0]).astype(np.float32)
     x, info = krylov_tpu.solve(
@@ -189,17 +189,9 @@ def test_camrr_chunked_and_mesh_agree(rng):
     assert i1["iterations"] == i2["iterations"] == im["iterations"]
 
 
-@pytest.mark.parametrize("method", ["cacg", "camrr"])
-def test_recovery_matmuls_pin_highest_precision(method):
-    """Round-5 regression (VERDICT r4 #2): the basis-recovery combinations
-    ``x_hat @ V`` / ``p_hat @ V`` MUST run at ``Precision.HIGHEST``.
-
-    The default f32 matmul precision lowers to bfloat16 MXU passes on TPU
-    (~1e-3 relative error); the carried search direction must preserve
-    CG's cross-outer conjugacy in full working precision.  CPU ignores
-    the precision flag, so this pins the STRUCTURE: every float32
-    dot_general in the traced kernel carries HIGHEST precision.
-    """
+def _kernel_dots(method, scalar_dtype):
+    """Every dot_general in the traced cacg/camrr kernel (loop and branch
+    bodies included)."""
     from krylov_tpu.context import Context
     from krylov_tpu.solvers.cacg import cacg_kernel, camrr_kernel
 
@@ -210,7 +202,7 @@ def test_recovery_matmuls_pin_highest_precision(method):
         lambda b: kernel(
             A, b, jnp.zeros_like(b), tol=1e-5, maxiter=16, s=4,
             lmin=0.05, lmax=8.0,
-            ctx=Context(scalar_dtype=jnp.float64),
+            ctx=Context(scalar_dtype=scalar_dtype),
         )
     )(b)
 
@@ -227,33 +219,61 @@ def test_recovery_matmuls_pin_highest_precision(method):
                             walk(u.jaxpr, out)
         return out
 
-    dots = walk(jaxpr.jaxpr, [])
-    f32_dots = [
-        e for e in dots
-        if any(getattr(v.aval, "dtype", None) == jnp.float32 for v in e.invars)
-    ]
-    assert f32_dots, "expected f32 recovery matmuls in the kernel trace"
+    return walk(jaxpr.jaxpr, [])
+
+
+def _assert_highest(eqns):
     from jax import lax
 
-    for e in f32_dots:
+    for e in eqns:
         prec = e.params.get("precision")
         assert prec is not None and all(
             p == lax.Precision.HIGHEST for p in (
                 prec if isinstance(prec, tuple) else (prec,)
             )
-        ), f"f32 dot_general without HIGHEST precision: {e}"
+        ), f"dot_general without HIGHEST precision: {e}"
+
+
+@pytest.mark.parametrize("method", ["cacg", "camrr"])
+def test_recovery_matmuls_pin_highest_precision(method):
+    """The basis-recovery combinations ``x_hat @ V`` / ``p_hat @ V`` MUST
+    run at ``Precision.HIGHEST``.
+
+    At the default precision a float32 matmul may run in TF32 on a GPU
+    (~1e-3 relative error); the carried search direction must preserve
+    CG's cross-outer conjugacy in full working precision.  CPU ignores
+    the precision flag, so this pins the STRUCTURE: every float32
+    dot_general in the traced kernel carries HIGHEST precision.
+    """
+    dots = _kernel_dots(method, jnp.float64)
+    f32_dots = [
+        e for e in dots
+        if any(getattr(v.aval, "dtype", None) == jnp.float32 for v in e.invars)
+    ]
+    assert f32_dots, "expected f32 recovery matmuls in the kernel trace"
+    _assert_highest(f32_dots)
+
+
+@pytest.mark.parametrize("method", ["cacg", "camrr"])
+def test_coefficient_products_pin_highest_precision(method):
+    """With float32 scalars the coefficient-space products (``T @ p_hat``,
+    ``G @ w``, the Gram-weighted inner products) are float32 matmuls too:
+    every dot_general of the kernel, not only the recovery, must carry
+    HIGHEST so that none of them can run in TF32."""
+    dots = _kernel_dots(method, None)
+    assert len(dots) > 4, "expected coefficient-space products in the trace"
+    _assert_highest(dots)
 
 
 @pytest.mark.parametrize("method", ["cacg", "camrr"])
 def test_divergence_guard_returns_best_iterate(method, rng):
-    """Round-5 regression (VERDICT r4 #2, mechanism test): s-step Krylov
+    """Regression (mechanism test): s-step Krylov
     methods are unstable PAST the working-precision floor — measured on
     CPU, a forced continuation (unreachable tol) blew up within two outer
     iterations of reaching the floor (1.6e-7 -> 1.1e-5 -> 4.9e-3 at
-    n=16k, s=8) before the guard existed.  On the TPU backend the
-    emulated-f64 Gram raises the attainable floor ~1 outer's worth, which
-    made the un-guarded cacg cross into that instability on solves whose
-    tol the CPU run cleared (captured: residual 41.3 / NaN).  The guard
+    n=16k, s=8) before the guard existed.  Where the attainable floor
+    sits just above ``tol``, an un-guarded cacg crosses into that
+    instability (residual 41.3 / NaN were seen that way).  The guard
     must (a) keep the trace finite-or-rolled-back and (b) return the best
     iterate, never a diverged one.
     """

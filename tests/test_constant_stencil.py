@@ -2,9 +2,8 @@
 of stored coefficient grids (same operator, no HBM coefficient traffic).
 
 Every consumer must give bit-identical (or reduction-order-identical)
-results vs the stored-grid form: XLA matvec, DIA conversion, the Pallas
-stencil kernel, the fused whole-solve kernels, preconditioner extraction,
-and the sharded halo path.
+results vs the stored-grid form: XLA matvec, DIA conversion, preconditioner
+extraction, and the sharded halo path.
 """
 
 import numpy as np
@@ -15,11 +14,6 @@ import jax.numpy as jnp
 
 import krylov_tpu
 from krylov_tpu.dist import make_mesh
-from krylov_tpu.kernels import (
-    fused_cg_solve_2d,
-    fused_mrr_solve_2d,
-    stencil_matvec_2d,
-)
 from krylov_tpu.precond import extract_diagonal, gershgorin_bounds, jacobi
 from krylov_tpu.sparse.fixtures import laplace2d, laplace3d
 
@@ -69,53 +63,6 @@ def test_to_dia_matches_grid_form():
     Dc, Dg = Ac.to_dia(), Ag.to_dia()
     assert Dc.offsets == Dg.offsets
     np.testing.assert_array_equal(np.asarray(Dc.data), np.asarray(Dg.data))
-
-
-@pytest.mark.parametrize("dims", [(20, 24), (17, 13)])
-def test_pallas_stencil_kernel_constant(dims):
-    """SMEM constant-weight kernel path vs the XLA matvec (interpret mode)."""
-    A = laplace2d(*dims, constant=True)
-    x = np.random.default_rng(2).standard_normal(A.shape[0])
-    y_ref = np.asarray(A.matvec(jnp.asarray(x)))
-    y_k = np.asarray(
-        stencil_matvec_2d(
-            A.coef, jnp.asarray(x), stencil=A.stencil, grid=A.grid, interpret=True
-        )
-    )
-    np.testing.assert_allclose(y_k, y_ref, rtol=1e-12)
-
-
-@pytest.mark.parametrize("method", ["cg", "mrr"])
-@pytest.mark.parametrize("dims", [(24, 24), (19, 21)])
-def test_fused_solver_constant_matches_grid_form(method, dims):
-    """Fused whole-solve kernels with SMEM constant weights: identical
-    iteration count and residual history vs the stored-grid form.  The
-    (19, 21) case exercises the padded-row mask (g0 % 8 != 0), where the
-    constant form has no stored boundary zeros to keep padding rows inert.
-    """
-    Ag = laplace2d(*dims)
-    Ac = laplace2d(*dims, constant=True)
-    n = Ag.shape[0]
-    b = np.random.default_rng(3).standard_normal(n)
-    bn = np.linalg.norm(b)
-    fn = fused_cg_solve_2d if method == "cg" else fused_mrr_solve_2d
-    out_g = fn(
-        Ag.coef, jnp.asarray(b), 1e-8, bn,
-        stencil=Ag.stencil, grid=Ag.grid, maxiter=800, interpret=True,
-    )
-    out_c = fn(
-        Ac.coef, jnp.asarray(b), 1e-8, bn,
-        stencil=Ac.stencil, grid=Ac.grid, maxiter=800, interpret=True,
-    )
-    xg, tg, ig, cg_ = out_g
-    xc, tc, ic, cc = out_c
-    assert bool(cg_) and bool(cc)
-    assert int(ig) == int(ic)
-    m = int(ig) + 1
-    np.testing.assert_allclose(
-        np.asarray(tc)[:m], np.asarray(tg)[:m], rtol=1e-12
-    )
-    np.testing.assert_allclose(np.asarray(xc), np.asarray(xg), rtol=1e-10)
 
 
 def test_preconditioners_constant_form():

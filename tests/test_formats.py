@@ -121,74 +121,54 @@ def test_pad_to_multiple(kind, rng):
     np.testing.assert_allclose(b_p[n:], 0.0)
 
 
-def test_gather_rows_slice_formulation_matches_element_gather(rng):
-    """The TPU slice-gather formulation (W-wide slice + one-hot select) must
-    be exact vs the plain element gather, including at non-multiple-of-W
-    table sizes and duplicate/boundary indices."""
+def test_gather_rows_matches_element_gather(rng):
+    """gather_rows must be exact vs ``x[idx]``, including at odd table sizes
+    and duplicate/boundary indices."""
     from krylov_tpu.sparse import formats
 
-    x = jnp.asarray(rng.standard_normal(1003).astype(np.float32))
+    x_np = rng.standard_normal(1003).astype(np.float32)
     idx = np.concatenate(
         [
             rng.integers(0, 1003, size=(64, 7)),
             np.array([[0] * 7, [1002] * 7]),  # boundary + duplicates
         ]
     ).astype(np.int32)
-    idx = jnp.asarray(idx)
-    plain = jnp.take(x, idx, axis=0)
-    old = formats._FORCE_SLICE_GATHER
-    formats._FORCE_SLICE_GATHER = True
-    try:
-        sliced = formats.gather_rows(x, idx)
-    finally:
-        formats._FORCE_SLICE_GATHER = old
-    np.testing.assert_array_equal(np.asarray(plain), np.asarray(sliced))
+    got = formats.gather_rows(jnp.asarray(x_np), jnp.asarray(idx))
+    np.testing.assert_array_equal(np.asarray(got), x_np[idx])
 
 
 def test_gather_rows_nonfinite_neighbors_do_not_poison(rng):
     """A NaN/inf in x must only affect gathers that actually index it — not
-    gathers of OTHER elements sharing its 16-wide slice (the old one-hot
-    multiply-sum turned 0 * inf into NaN; ADVICE r3)."""
+    gathers of neighbouring elements."""
     from krylov_tpu.sparse import formats
 
     x_np = rng.standard_normal(256).astype(np.float32)
     x_np[5] = np.inf
     x_np[130] = np.nan
     x = jnp.asarray(x_np)
-    # indices adjacent to (same W-slice as) the poisoned entries, but never
-    # equal to them
+    # indices adjacent to the poisoned entries, but never equal to them
     idx = jnp.asarray(np.array([[4, 6, 12], [128, 131, 140]], dtype=np.int32))
-    old = formats._FORCE_SLICE_GATHER
-    formats._FORCE_SLICE_GATHER = True
-    try:
-        out = np.asarray(formats.gather_rows(x, idx))
-    finally:
-        formats._FORCE_SLICE_GATHER = old
+    out = np.asarray(formats.gather_rows(x, idx))
     assert np.isfinite(out).all()
     np.testing.assert_array_equal(out, x_np[np.asarray(idx)])
 
 
-def test_hyb_matvec_with_forced_slice_gather(rng):
-    """Full HYB matvec through the slice-gather path vs scipy ground truth."""
-    from krylov_tpu.sparse import formats
+def test_hyb_matvec_matches_scipy(rng):
+    """Full HYB matvec (ELL gather + split tail scatter-add) vs scipy."""
     from krylov_tpu.sparse.convert import to_hyb
     from krylov_tpu.sparse.fixtures import powerlaw_spd
 
     A_sp = powerlaw_spd(512, seed=3)
     H = to_hyb(A_sp, dtype=np.float64)
+    assert H.tail_data.shape[0] > 0, "fixture must exercise the tail block"
     x = rng.standard_normal(512)
-    old = formats._FORCE_SLICE_GATHER
-    formats._FORCE_SLICE_GATHER = True
-    try:
-        y = np.asarray(H.matvec(jnp.asarray(x)))
-    finally:
-        formats._FORCE_SLICE_GATHER = old
+    y = np.asarray(H.matvec(jnp.asarray(x)))
     np.testing.assert_allclose(y, A_sp @ x, rtol=1e-12, atol=1e-12)
 
 
 def test_fixtures_and_host_paths_do_zero_device_transfers():
-    """Containers are host-lazy (VERDICT r3: a device round-trip inside
-    nominally host-side code stalled the round-3 bench for 420 s).  Building
+    """Containers are host-lazy (no device round-trip or device memory in
+    nominally host-side code).  Building
     fixtures, converting from scipy, to_dia/todense/grid_coef, padding, and
     the host-f64 matvec must all run without touching any device."""
     import jax
@@ -229,10 +209,9 @@ def test_fixtures_and_host_paths_do_zero_device_transfers():
 
 
 def test_gather_rows_vmap_matches_per_lane(rng):
-    """Round-5: the custom vmap rule (batch -> trailing-axis row gather;
-    the multi-RHS amortization, VERDICT r4 #4) must agree with per-lane
-    gathers — including under the forced TPU slice-gather formulation,
-    and with non-finite entries present (the inf/NaN-safety property)."""
+    """The custom vmap rule (batch -> trailing-axis row gather; the
+    multi-RHS amortization) must agree with per-lane gathers, with
+    non-finite entries present (the inf/NaN-safety property)."""
     import jax
     from krylov_tpu.sparse import formats
 
@@ -249,26 +228,12 @@ def test_gather_rows_vmap_matches_per_lane(rng):
         )
     )
     np.testing.assert_array_equal(got, expect)
-
-    old = formats._FORCE_SLICE_GATHER
-    formats._FORCE_SLICE_GATHER = True
-    try:
-        # unbatched path still the slice-gather; batched path routes to
-        # the amortized row gather regardless
-        got1 = np.asarray(formats.gather_rows(jnp.asarray(X[2]), jnp.asarray(idx)))
-        np.testing.assert_array_equal(got1, expect[2])
-        got2 = np.asarray(
-            jax.vmap(lambda x: formats.gather_rows(x, jnp.asarray(idx)))(
-                jnp.asarray(X)
-            )
-        )
-        np.testing.assert_array_equal(got2, expect)
-    finally:
-        formats._FORCE_SLICE_GATHER = old
+    got1 = np.asarray(formats.gather_rows(jnp.asarray(X[2]), jnp.asarray(idx)))
+    np.testing.assert_array_equal(got1, expect[2])
 
 
 def test_scatter_add_rows_vmap_matches_per_lane(rng):
-    """Round-5: the batched HYB tail scatter routes through a trailing-axis
+    """The batched HYB tail scatter routes through a trailing-axis
     slice scatter (same amortization as the gathers); must equal per-lane
     scatter-adds, duplicates accumulating."""
     import jax
@@ -292,10 +257,9 @@ def test_scatter_add_rows_vmap_matches_per_lane(rng):
 
 
 def test_to_device_commit_is_cached(rng):
-    """Round-5: repeated to_device on the SAME host-lazy container returns
-    the SAME committed operator (identity-keyed weak cache) — without it,
-    every solve() call re-uploads the matrix through the interconnect
-    (measured: a 1.3 s remote-TPU solve inflated to 7.4 s)."""
+    """Repeated to_device on the SAME host-lazy container returns the SAME
+    committed operator (identity-keyed weak cache) — without it, every
+    solve() call re-uploads the matrix."""
     import gc
     from krylov_tpu.sparse import formats
     from krylov_tpu.sparse.fixtures import laplace2d
@@ -311,3 +275,26 @@ def test_to_device_commit_is_cached(rng):
     del A
     gc.collect()
     assert key not in formats._COMMIT_CACHE
+
+
+def test_to_device_never_caches_a_commit_made_under_jit():
+    """A host-lazy container first committed inside a jit trace must not
+    leave tracers in the commit cache: a jitted solve_device followed by a
+    host solve on the SAME container both succeed, with the same answer."""
+    import jax
+
+    import krylov_tpu
+    from krylov_tpu.sparse import formats
+
+    A = laplace2d(12, dtype=np.float64)
+    b = np.random.default_rng(5).standard_normal(A.shape[0])
+    res = jax.jit(
+        lambda bb: krylov_tpu.solve_device(A, bb, method="cg", tol=1e-8)
+    )(jnp.asarray(b))
+    for _, committed in formats._COMMIT_CACHE.values():
+        for leaf in jax.tree.leaves(committed):
+            assert not isinstance(leaf, jax.core.Tracer)
+    x, info = krylov_tpu.solve(A, b, method="cg", tol=1e-8)
+    assert info["converged"] and bool(res.converged)
+    assert info["iterations"] == int(res.iterations)
+    np.testing.assert_allclose(x, np.asarray(res.x), rtol=1e-10, atol=1e-12)

@@ -27,7 +27,7 @@ def skewed():
 
 
 def test_hyb_storage_beats_ell_4x(skewed):
-    """VERDICT done-condition: a power-law matrix where plain ELL storage is
+    """Done-condition for HYB: a power-law matrix where plain ELL storage is
     >= 4x larger than the split."""
     A, _, _ = skewed
     row_nnz = np.diff(A.indptr)
@@ -174,7 +174,7 @@ def test_hyb_pcg_jacobi_and_chebyshev(skewed):
 def test_graded_spectrum_variant_is_hard_and_jacobi_fixes_it():
     """``diag_scale_decades`` turns the trivially-conditioned powerlaw SPD
     (kappa ~ 41, CG ~ 16 iterations at any size) into a genuinely graded
-    spectrum (VERDICT r2 #5): CG needs an order of magnitude more
+    spectrum: CG needs an order of magnitude more
     iterations, and Jacobi-PCG — which undoes the diagonal grading —
     recovers the easy count.  Run at n=2048 for speed; kappa of the n=4096
     instance of the same generator is 1.6e5 (scipy eigsh, both ends)."""

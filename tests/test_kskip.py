@@ -77,8 +77,8 @@ def test_scalar_dtype_f64_stabilizes_f32_kskip():
     The monomial-basis Gram has condition ~kappa^k, so its entries need
     more than vector precision; ``scalar_dtype=f64`` upcasts the Gram
     operands (context.py::_wide) and runs the recurrences in f64.  This is
-    the TPU answer to the reference's all-float64 policy (reference:
-    v3/cpu/common.py:23) given that TPU f64 vectors are emulated and slow.
+    the reference's all-float64 policy (reference: v3/cpu/common.py:23)
+    where it matters, at float32 vector bandwidth.
     laplace2d(64) (kappa ~ 1.7e3), k=5: raw f32 NaNs; mixed converges.
     (k=6 sits on the stability cliff — convergence there flips with XLA CPU
     reduction order; k=5 is robustly on the stable side for the mixed path.)

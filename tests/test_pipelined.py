@@ -1,5 +1,5 @@
 """Preconditioned / pipelined CG family (capability of the reference's
-v1/threads/pipeline tree) + TPU-native preconditioners."""
+v1/threads/pipeline tree) + matvec-only preconditioners."""
 
 import numpy as np
 import pytest
@@ -85,7 +85,7 @@ def test_lanczos_bounds_on_graded_spectrum():
 
 
 def test_chebyshev_lanczos_bounds_beat_heuristic():
-    """VERDICT r2 #9: on a graded spectrum the gershgorin lmin=lmax/30
+    """On a graded spectrum the gershgorin lmin=lmax/30
     heuristic is badly wrong; Lanczos-bounded Chebyshev must converge in
     <= 0.6x the outer iterations, and it is now the DEFAULT (bounds="auto")."""
     from krylov_tpu.sparse.formats import DiaMatrix
